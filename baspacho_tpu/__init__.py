@@ -1,10 +1,10 @@
-"""baspacho_tpu — TPU-native batched supernodal sparse Cholesky.
+"""baspacho_tpu — batched supernodal sparse Cholesky in JAX.
 
-A from-scratch JAX/XLA/Pallas rebuild of the capabilities of
+A from-scratch JAX/XLA rebuild of the capabilities of
 facebookresearch/baspacho: host-side symbolic analysis emits static block
-plans; numeric factor/solve run as shape-static jitted kernels over flat
-HBM buffers, with batching as a vmapped leading axis and multi-chip
-scaling via jax.sharding over the batch dimension.
+plans; numeric factor/solve run as shape-static jitted programs over flat
+device buffers, with batching as a vmapped leading axis and multi-device
+scaling via jax.sharding.
 """
 
 def _tune_malloc():
@@ -13,7 +13,7 @@ def _tune_malloc():
     through GBs of large numpy temporaries; glibc munmaps each on free,
     so every one pays first-touch page faults again — and under
     sandboxed/virtualized kernels a fault costs ~100x bare metal
-    (measured on this box: first touch of a fresh 76 MB buffer ~6 s,
+    (on a sandboxed VM, first touch of a fresh 76 MB buffer took ~6 s,
     reused heap memory ~60 ms)."""
     import ctypes
     try:

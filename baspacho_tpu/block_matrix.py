@@ -38,7 +38,7 @@ class CoalescedBlockMatrixSkel:
     padded_below >= actual below rows. With `pad_fn=None` the padding is
     zero (col_stride == width, padded_below == below rows) and the layout
     matches the reference's packed scheme (CoalescedBlockMatrix.cpp).
-    With a pad function (used by the TPU planned backend), panels are
+    With a pad function (used by the planned backend), panels are
     padded to bucket shapes so that groups of same-shape columns are
     contiguous, letting batched kernels address them with plain reshapes
     instead of gathers. Padding regions must hold zeros for factor

@@ -6,15 +6,15 @@ Host-side planner with behavior parity with the reference EliminationTree
 1. Build the elimination tree of the (reordered) block pattern, with
    per-node row statistics and linear cost accumulators.
 2. Detect "sparse elimination ranges": large sets of same-height small
-   nodes that are eliminated in one massively-parallel step (on TPU: one
-   batched kernel over all nodes of the range) while skipping node-merge
+   nodes that are eliminated in one massively-parallel step (here: one
+   batched op over all nodes of the range) while skipping node-merge
    fill. Heuristic constants match the reference (max node size 12, min 50
    nodes, skip when >1/3 of candidates merge easily).
 3. Greedy child->parent supernode merging on the remaining tree, accepting
    a merge when the computation model predicts the merged node's potrf +
-   trsm + syge + assembly time beats the two separate nodes'. On TPU the
-   model is fitted so that merges are more aggressive (launch overhead
-   dominates small ops, and uniform large panels feed the MXU).
+   trsm + syge + assembly time beats the two separate nodes'. The default
+   model makes merges more aggressive than a CPU model (launch overhead
+   dominates small ops, and uniform large panels feed the matmul units).
 
 Everything here is NumPy/Python on host, run once per sparsity pattern.
 """
@@ -26,7 +26,7 @@ from typing import List, Optional, Sequence
 
 import numpy as np
 
-from .computation_model import ComputationModel, model_tpu_v5e_default
+from .computation_model import ComputationModel, model_default
 from .sparse_structure import SparseStructure
 from .utils import cum_sum_vec
 
@@ -45,7 +45,7 @@ class EliminationTree:
                  comp_model: Optional[ComputationModel] = None):
         self.param_size = np.asarray(param_size, dtype=np.int64)
         self.ss = ss
-        self.comp_model = comp_model or model_tpu_v5e_default
+        self.comp_model = comp_model or model_default
         assert len(self.param_size) == ss.order
 
     # ------------------------------------------------------------------

@@ -27,7 +27,7 @@ def _maybe_build(native_dir: str) -> None:
     """Build (or rebuild) the shared object from source when missing or
     stale. The binary is not checked into version control — it is always
     produced from the committed symbolic.cpp, so it can't silently drift
-    from source (round-1 advisor finding)."""
+    from source."""
     src = os.path.join(native_dir, "symbolic.cpp")
     so = os.path.join(native_dir, "libbaspacho_symbolic.so")
     if not os.path.exists(src):

@@ -1,7 +1,7 @@
 """Numeric plans: static index descriptors extracted from the skeleton.
 
 The symbolic/numeric split of the reference (SymbolicCtx precomputing index
-maps once, NumericCtx replaying them per factor call) becomes, on TPU:
+maps once, NumericCtx replaying them per factor call) becomes, here:
 everything data-dependent is precomputed **here** as NumPy arrays, then
 baked into jitted functions as constants. No host<->device index traffic
 ever happens at numeric time — this also fixes the reference's per-lump

@@ -1,6 +1,6 @@
 """Planned backend: level-scheduled, bucketed, batched numeric ops.
 
-The TPU analog of the reference's fast backends (MatOpsFast.cpp /
+The XLA counterpart of the reference's fast backends (MatOpsFast.cpp /
 MatOpsCuda.cu), redesigned for XLA instead of translated:
 
   * The elimination tree is level-scheduled: every lump (supernode) gets a
@@ -13,7 +13,7 @@ MatOpsCuda.cu), redesigned for XLA instead of translated:
     each bucket runs ONE batched op: gather panels -> batched cholesky ->
     batched triangular solve -> scatter back. Right-looking updates
     compute each column's outer product once as a single batched
-    (B, R, R) matmul on the MXU; the per-level products are then
+    (B, R, R) matmul; the per-level products are then
     assembled into later columns by a handful of per-block-shape
     gather/scatter-add passes (deterministic — replaces CUDA atomics, and
     subsumes the reference's flattened block-pair sparse-elim kernel
@@ -136,11 +136,8 @@ class PairBucket:
 
 
 class PlannedBackend:
-    # MXU precision of the level-update accumulation GEMMs (the
+    # matmul precision of the level-update accumulation GEMMs (the
     # U = sum x x^T syrk); set by Solver from Settings.update_precision.
-    # "high" (3-pass bf16) measures 49.8 vs 28.8 Tflop/s at "highest" on
-    # v5e with error far inside the reference float epsilon (products
-    # feed an f32 accumulator; see Settings.update_precision).
     update_precision: str = "highest"
 
     def _upd_prec(self):
@@ -170,6 +167,8 @@ class PlannedBackend:
     def _by_level(self, start: int, end: int) -> List[np.ndarray]:
         """Lump ids of [start, end) grouped by schedule level (ascending),
         preserving id order within a level."""
+        if end <= start:
+            return []
         lv = np.asarray(self.plan.lump_levels[start:end])
         ids = np.arange(start, end, dtype=np.int64)
         order = np.argsort(lv, kind="stable")
@@ -193,13 +192,13 @@ class PlannedBackend:
     DENSE_MIN_ORIGINS = 1
     DENSE_MAX_ORDER = 16384   # max compact region (touched rows) of U
 
-    # cost-model constants for the dense-vs-pairs decision (measured on
-    # TPU v5e: MXU f32 highest-precision effective throughput ~2e13
-    # flop/s; per-XLA-op launch overhead ~2us; HBM read+write bandwidth.
-    # Scatter cost is modeled per addressed row — see ROW_NS below; the
-    # round-2 "~20ns/element" figure was a 3-wide-row measurement of the
-    # same per-row bound.)
-    MXU_FLOPS = 2.0e13
+    # cost-model constants for the dense-vs-pairs decision: f32 highest-
+    # precision matmul throughput, per-XLA-op launch overhead, HBM
+    # read+write bandwidth; scatter cost is modeled per addressed row (see
+    # ROW_NS below). Carried over unmeasured on the current GPU target
+    # from an earlier accelerator's timings; they select plans, so
+    # refitting them is a measured performance change.
+    MATMUL_FLOPS = 2.0e13
     OP_US = 2e-6
     HBM_BPS = 8.0e11
 
@@ -273,7 +272,7 @@ class PlannedBackend:
                              for lb in lump_buckets)
             pairs_cost = pairs_rows * self.ROW_NS + \
                 (pairs_elems + prod_total) * 8 / self.HBM_BPS + \
-                prod_flops / self.MXU_FLOPS + \
+                prod_flops / self.MATMUL_FLOPS + \
                 len(pair_buckets) * self.OP_US
             if debug:
                 print(f"[plan] level({len(lds)} lumps): "
@@ -298,14 +297,11 @@ class PlannedBackend:
     OUTLIER_SPREAD = 512   # floor for the adaptive per-level outlier cap
     CHUNK_STEP_US = 10e-6   # modeled lax.scan chunk-step overhead
     OH_GEN_NS = 0.1e-9      # modeled one-hot generation cost per element
-    #                         (fused compare+convert feeding the MXU;
-    #                         calibrated against measured flat_schur and
-    #                         BAL dense-level times)
-    ROW_NS = 60e-9          # modeled scatter cost per ADDRESSED ROW: TPU
-    #                         scatter throughput is per-index-row bound,
-    #                         not per-element (3-wide rows measured
-    #                         ~20 ns/el = ~60 ns/row in round 2; wide
-    #                         rows approach HBM bandwidth)
+    #                         (fused compare+convert feeding the matmul)
+    ROW_NS = 60e-9          # modeled scatter cost per ADDRESSED ROW
+    #                         (scatter throughput modeled as per-index-row
+    #                         bound, not per-element; wide rows approach
+    #                         HBM bandwidth)
     W_MAX_ELEMS = 32 << 20  # cap on materialized W (R x K) for the
     #                         scatter-built dense mode (128 MB f32)
 
@@ -336,7 +332,7 @@ class PlannedBackend:
             flops = float((2 * subp * subp * per * cp +
                            2 * per * rp * subp * cp).sum())
             oh = float((per * rp * subp).sum())
-            cost = nv * self.CHUNK_STEP_US + flops / self.MXU_FLOPS + \
+            cost = nv * self.CHUNK_STEP_US + flops / self.MATMUL_FLOPS + \
                 oh * self.OH_GEN_NS
             if best is None or cost < best:
                 best, best_per = cost, per
@@ -381,7 +377,7 @@ class PlannedBackend:
     #                      (static offsets, no masks); beyond, same-padded-
     #                      shape groups run under lax.scan (~1us/slice)
     MAX_SLICES = 200_000  # absolute graph-sanity cap on scanned slices
-    SUB_FLOOR = 256      # min padded chunk sub-region (MXU-friendly)
+    SUB_FLOOR = 256      # min padded chunk sub-region (matmul-friendly)
     SCAN_SLICE_US = 1e-6  # modeled per-slice lax.scan iteration overhead
 
     def _build_dense_update(self, lds, lump_buckets):
@@ -392,19 +388,19 @@ class PlannedBackend:
         of the compact space (tight when the ordering has locality, e.g.
         BAL landmarks sorted by camera): its contribution is computed as
 
-            y_b = OneHot_b^T x_b          (rows placed by MXU matmul)
+            y_b = OneHot_b^T x_b          (rows placed by a matmul)
             U[lo:lo+sub, lo:lo+sub] += sum_b y_b y_b^T   (one GEMM)
 
         — cross-panel terms vanish because different panels occupy
         disjoint columns of the implicit W. Using one-hot matmuls instead
-        of scatters keeps everything on the MXU (XLA scatters run at
-        ~20ns/element — 2000x below HBM bandwidth, measured). Chunks of
+        of scatters keeps everything in dense matmuls (the cost model
+        prices scatters per addressed row, see ROW_NS). Chunks of
         equal shape run under one lax.scan, so the XLA graph stays small
         at any chunk count (527k-landmark BAL => ~1000 chunks).
 
         U holds exactly the level's block-pair updates; targets receive it
         via contiguous chain-run slice subtractions at compact coords.
-        This is the TPU-native form of the reference's flattened
+        This is the batched-matmul form of the reference's flattened
         block-pair sparse elimination (MatOpsCuda.cu:309)."""
         sk = self.plan.skel
         span_size = sk.span_start[1:] - sk.span_start[:-1]
@@ -505,13 +501,10 @@ class PlannedBackend:
         # dense sub-strategy: when W (R x K, K = total padded origin
         # columns) fits, MATERIALIZE it with one panel scatter per bucket
         # and compute U = W W^T as a single GEMM — panel scatters address
-        # whole cp-wide rows (~HBM speed), the GEMM is pure MXU, and the
-        # solve's below updates collapse to two matvecs against W. The
+        # whole cp-wide rows (~HBM speed), the GEMM is a plain matmul, and
+        # the solve's below updates collapse to two matvecs against W. The
         # chunked one-hot accumulation remains for levels whose W would
-        # not fit (e.g. 527k-landmark BAL level 0). Round 2 shipped only
-        # the one-hot form and lost 4 ms on flat1000 against round 1's
-        # scatter-built W — this restores the better mechanism under an
-        # explicit size guard.
+        # not fit (e.g. 527k-landmark BAL level 0).
         Kp = sum(len(lump_buckets[bi].off) * lump_buckets[bi].cp
                  for bi, pb_ in per_bucket.items() if pb_ is not None)
         force_dm = os.environ.get("BASPACHO_FORCE_DENSE_MODE")
@@ -691,7 +684,7 @@ class PlannedBackend:
         # lower block-triangle of U (see _plan_sg). Costed against the
         # row-granular form; the row-granular descriptors are kept in the
         # plan regardless (solve + sharded factor still use them).
-        update_cost = total_flops / self.MXU_FLOPS + mode_cost
+        update_cost = total_flops / self.MATMUL_FLOPS + mode_cost
         sg = None
         if not w_mode and force_dm != "row":
             sg = self._plan_sg(tsizes, R, per_bucket, cr_b, spread_b,
@@ -754,14 +747,14 @@ class PlannedBackend:
         all-9 BA camera bottoms), the one-hot placement can address SPANS
         instead of rows: the oh tensor shrinks by ~s3^2 (rows/s3 on the
         source side, positions/s3 on the target side) and the placement
-        einsum moves s3*cp-wide blocks per MXU lane instead of cp-wide
+        einsum moves s3*cp-wide blocks per matmul column instead of cp-wide
         rows. When additionally every chunk covers the whole compact space
         (random-fill Schur sets: no locality, spread ~ R), the U
         accumulation runs only on a lower block-triangle of T row-blocks
         (mirrored once after the scan), cutting the accumulation GEMM to
         (T+1)/2T of the full square. On the reference's schursize=50000
-        config this replaces a measured ~1s row-granular accumulation with
-        ~2.4 TFLOP of near-pure MXU syrk. Returns None when the level is
+        config this replaces a row-granular accumulation with ~2.4 TFLOP
+        of near-pure syrk. Returns None when the level is
         not span-uniform."""
         s3 = int(tsizes[0]) if len(tsizes) else 0
         if s3 < 2 or np.any(tsizes != s3) or R % s3:
@@ -807,7 +800,7 @@ class PlannedBackend:
         pad_b: Dict[int, int] = {}
         n_chunks = 0
         flops_u = 0.0   # U-accumulation GEMM flops (pre-triangular)
-        flops_y = 0.0   # placement einsum flops (MXU-lane padded)
+        flops_y = 0.0   # placement einsum flops (width padded to 128)
         oh_elems = 0.0
         y_elems = 0.0
         u_rmw = 0.0     # per-chunk U window read+write bytes
@@ -821,7 +814,7 @@ class PlannedBackend:
             B = len(lb.off)
             ns3p = maps[bi].shape[1]
             cp = lb.cp
-            lane = max(s3 * cp, 128)  # MXU lane padding on the y einsum
+            lane = max(s3 * cp, 128)  # modeled min width of the y einsum
             best, best_per = None, 4
             per = 4
             while per <= max(4, 4 * self.CHUNK_W // cp):
@@ -841,7 +834,7 @@ class PlannedBackend:
                 ye = float((per * ssub * s3 * cp).sum())
                 rmw = float(((ssub * s3) ** 2).sum()) * 8
                 cost = nv * self.CHUNK_STEP_US + \
-                    (fl + fy) / self.MXU_FLOPS + \
+                    (fl + fy) / self.MATMUL_FLOPS + \
                     ((oh + 2 * ye) * 4 + rmw) / self.HBM_BPS
                 if best is None or cost < best:
                     best, best_per = cost, per
@@ -889,18 +882,16 @@ class PlannedBackend:
                 flops_u *= frac
                 u_rmw *= frac
         cost = n_chunks * self.CHUNK_STEP_US + \
-            (flops_u + flops_y) / self.MXU_FLOPS + \
+            (flops_u + flops_y) / self.MATMUL_FLOPS + \
             ((oh_elems + 2 * y_elems) * 4 + u_rmw) / self.HBM_BPS
         return {"s3": s3, "S": S, "maps": maps, "groups": groups,
                 "pad_b": pad_b, "tri": tri, "cost": cost}
 
-    # Cap on the TPU-tiled footprint of one bucket's materialized 3-D
-    # panel tensor (B, cp+rp, cp): the minor dim cp tiles up to 128 lanes,
-    # so e.g. BAL's 527k (68, 4)-panels would materialize 19.4 GB as one
-    # tensor (> the chip's 16 GB HBM). Oversized shape groups are split
-    # into contiguous sub-buckets below this cap — downstream planning
-    # (dense/sg/pairs/sharded) iterates buckets generically, so the split
-    # is transparent everywhere. Override: BASPACHO_PANEL_BYTES_CAP.
+    # Memory bound on one bucket's materialized 3-D panel tensor
+    # (B, cp+rp, cp): oversized shape groups are split into contiguous
+    # sub-buckets below this cap — downstream planning (dense/sg/pairs/
+    # sharded) iterates buckets generically, so the split is transparent
+    # everywhere. Override: BASPACHO_PANEL_BYTES_CAP.
     PANEL_BYTES_CAP = 2 << 30
 
     def _panel_cap(self) -> int:
@@ -908,16 +899,16 @@ class PlannedBackend:
         return int(env) if env else self.PANEL_BYTES_CAP
 
     @staticmethod
-    def _panel_tile_bytes(rp: int, cp: int) -> int:
-        """TPU-tiled bytes of ONE (cp+rp, cp) f32 panel: second-to-last
-        dim pads to 8, minor dim to 128."""
-        h = rp + cp
-        return ((h + 7) // 8) * 8 * ((cp + 127) // 128) * 128 * 4
+    def _panel_bytes(rp: int, cp: int, dtype=np.float64) -> int:
+        """Dense bytes of ONE (cp+rp, cp) panel. Plans are built before
+        the data's dtype is known and one plan serves float32 factors and
+        float64 refinement residuals alike, so callers charge float64."""
+        return (rp + cp) * cp * np.dtype(dtype).itemsize
 
     def _bucket_lumps(self, lds, with_below_idx: bool) -> List[LumpBucket]:
         """Group the lump ids by padded panel shape (fully vectorized —
         at BAL scale a level holds 500k+ lumps); oversized shape groups
-        split into sub-buckets under the tiled-footprint cap."""
+        split into sub-buckets under the panel-bytes cap."""
         plan = self.plan
         order = plan.skel.order
         lds = np.asarray(lds, dtype=np.int64)
@@ -934,7 +925,7 @@ class PlannedBackend:
         sub_bounds = []
         for a, b in zip(bounds[:-1], bounds[1:]):
             max_b = max(1, cap //
-                        self._panel_tile_bytes(int(prp_s[a]), int(cp_s[a])))
+                        self._panel_bytes(int(prp_s[a]), int(cp_s[a])))
             for s in range(a, b, max_b):
                 sub_bounds.append((s, min(s + max_b, b)))
         ptr = plan.below_row_ptr
@@ -1054,14 +1045,8 @@ class PlannedBackend:
         src, sstride, rs, cls, c0, trs, stride = arr
         out = []
 
-        # (a "whole-window scatter" variant was measured at ~2-4us per
-        # window on v5e — windowed scatter_adds lower to per-window DMAs —
-        # and removed; elementwise scatters at ~20ns/element win at every
-        # profiled shape, and bulk fragmented levels go dense instead)
-
-        # element path: exact-shape groups (scatter cost on TPU is
-        # ~20ns/element regardless of layout — measured — so the win is
-        # scattering ZERO padded elements and skipping the mask/clip).
+        # element path: exact-shape groups (the win is scattering ZERO
+        # padded elements and skipping the mask/clip).
         # Shapes covering few pairs are folded into pow2-padded catch-all
         # groups to bound the XLA op count.
         esel = np.arange(len(rs))
@@ -1134,8 +1119,8 @@ class PlannedBackend:
         garbage into the RHS's sacrificial sentinel row, and the Lt pass
         of the SAME program then multiplies that dirty sentinel by the
         garbage rows back into real solution rows (the L/Lt passes share
-        one vv in make_solve). Solve cost is per-XLA-op overhead dominated
-        (measured), so fewer, fatter ops win despite the padding."""
+        one vv in make_solve). Solve cost is modeled as per-XLA-op overhead
+        dominated, so fewer, fatter ops win despite the padding."""
         order = self.plan.skel.order
         by_cp: Dict[int, list] = {}
         for lb in buckets:
@@ -1143,16 +1128,18 @@ class PlannedBackend:
         out = []
         cap = self._panel_cap()
         for cp, group_all in sorted(by_cp.items()):
-            # greedy partition so each fused bucket's tiled panel tensor
-            # stays under the footprint cap (same limit as _bucket_lumps)
-            groups, cur, cur_bytes = [], [], 0
+            # greedy partition so each fused bucket's panel tensor stays
+            # under the footprint cap (same limit as _bucket_lumps). The
+            # fused tensor reads EVERY member at the group's max rp, so a
+            # group costs its total B times the panel bytes at that rp.
+            groups, cur, cur_b, cur_rp = [], [], 0, 0
             for lb in group_all:
-                pb = len(lb.off) * self._panel_tile_bytes(lb.rp, lb.cp)
-                if cur and cur_bytes + pb > cap:
+                b, rp = cur_b + len(lb.off), max(cur_rp, lb.rp)
+                if cur and b * self._panel_bytes(rp, cp) > cap:
                     groups.append(cur)
-                    cur, cur_bytes = [], 0
+                    cur, b, rp = [], len(lb.off), lb.rp
                 cur.append(lb)
-                cur_bytes += pb
+                cur_b, cur_rp = b, rp
             if cur:
                 groups.append(cur)
             for group in groups:
@@ -1192,10 +1179,11 @@ class PlannedBackend:
     def _big_panel_solve(self, L, x, transpose):
         """Solve L x = b (or L^T x = b) for wide panels (cp > SOLVE_BLOCK)
         as a chain of matmuls against batch-inverted diagonal blocks: one
-        batched triangular_solve against I computes all block inverses
-        (matmul-speed on the MXU), then each 512-step is two matmuls —
-        replacing a long chain of nrhs=1 triangular solves whose per-op
-        cost dominated solve latency (measured)."""
+        batched triangular_solve against I computes all block inverses,
+        then each 512-step is two matmuls —
+        replacing a long chain of nrhs=1 triangular solves. Only reached
+        when the stored inverse is not used (see PERF.md for its time
+        against plain triangular_solve on an H100)."""
         B, cp = L.shape[0], L.shape[1]
         bs = self.SOLVE_BLOCK
         nb = (cp + bs - 1) // bs
@@ -1236,8 +1224,8 @@ class PlannedBackend:
     def _read_panels(self, ext, lb: LumpBucket):
         """(B, cp+rp, cp) panel tensor. Contiguous buckets are one
         reshape of a slice; otherwise one whole-panel gather WINDOW per
-        lump (panels are contiguous in the padded storage, so this runs
-        at DMA bandwidth rather than per-element gather speed)."""
+        lump (panels are contiguous in the padded storage, so this moves
+        whole panels rather than gathering element by element)."""
         B = len(lb.off)
         h = lb.cp + lb.rp
         if lb.contiguous:
@@ -1272,48 +1260,14 @@ class PlannedBackend:
         return ((i_ == j_) &
                 (i_ >= jnp.asarray(cols)[:, None, None])).astype(dtype)
 
-    BLOCK = 256  # panel width for the blocked big-lump factorization
-
-    def _blocked_factor(self, diag, below, dtype):
-        """Blocked right-looking Cholesky of a batched (B, cp, cp) diag
-        with trailing (B, rp, cp) trsm — XLA's native cholesky compiles
-        poorly above ~1k, so wide supernodes run as an in-graph loop of
-        256-panel potrf/trsm/syrk steps (all matmuls on the MXU)."""
-        cp = diag.shape[1]
-        nb = self.BLOCK
-        for k in range(0, cp, nb):
-            w = min(nb, cp - k)
-            dk = diag[:, k:k + w, k:k + w]
-            Lk = jax.lax.linalg.cholesky(dk, symmetrize_input=False)
-            diag = diag.at[:, k:k + w, k:k + w].set(Lk)
-            if k + w < cp:
-                pan = jax.lax.linalg.triangular_solve(
-                    Lk, diag[:, k + w:, k:k + w], left_side=False,
-                    lower=True, transpose_a=True)
-                diag = diag.at[:, k + w:, k:k + w].set(pan)
-                upd = jnp.einsum("brk,bsk->brs", pan, pan,
-                                 preferred_element_type=dtype)
-                diag = diag.at[:, k + w:, k + w:].add(-upd)
-            if below is not None:
-                bpan = jax.lax.linalg.triangular_solve(
-                    Lk, below[:, :, k:k + w], left_side=False,
-                    lower=True, transpose_a=True)
-                below = below.at[:, :, k:k + w].set(bpan)
-                if k + w < cp:
-                    upd = jnp.einsum("brk,bsk->brs", bpan,
-                                     diag[:, k + w:, k:k + w],
-                                     preferred_element_type=dtype)
-                    below = below.at[:, :, k + w:].add(-upd)
-        return diag, below
-
     UNROLL_CP = 8  # widths up to this use the unrolled scalar-vector path
 
     def _unrolled_chol(self, A):
         """Unrolled Cholesky for tiny panel widths as fused (B,) vector
-        ops. XLA's batched cholesky/triangular_solve primitives lower to
-        lane-padded masked loops that are catastrophically slow for
-        (B, n<=8, n) on TPU — measured 238 ms for a 50k-lump n=4 sparse
-        elimination level where this path takes ~10 ms."""
+        ops. On an H100 this beats batched cholesky + triangular_solve at
+        the Schur-level shapes: B=527,480 (4, 4)-panels with 64 below
+        rows factor in 0.96 ms vs 2.64 ms, and whole grid / meri factors
+        are 8% / 25% faster (see PERF.md)."""
         n = A.shape[1]
         L = [[None] * n for _ in range(n)]
         zero = jnp.zeros_like(A[:, 0, 0])
@@ -1350,68 +1304,32 @@ class PlannedBackend:
                            for j in range(n)], axis=-1) for i in range(n)]
         return jnp.stack(rows, axis=1)
 
-    def _blocked_lower_inv(self, L, dtype):
-        """Full inverse of a batched wide lower-triangular (B, cp, cp) L,
-        cp a multiple of SOLVE_BLOCK: one batched 512-block triangular
-        solve for the diagonal-block inverses, then a block-row sweep
-        X[i,:i] = -Dinv[i] (L[i,:i] X[:i,:i]) — O(nb) matmuls instead of
-        a cp-deep substitution. Only the (block-)lower part of L is read,
-        so the junk the blocked factor leaves right of its panels is
-        harmless."""
-        B, cp = L.shape[0], L.shape[1]
-        bs = self.SOLVE_BLOCK
-        nb = cp // bs
-        assert cp % bs == 0, "padded widths are 512-multiples above 512"
-        blocks = jnp.stack([L[:, k * bs:(k + 1) * bs, k * bs:(k + 1) * bs]
-                            for k in range(nb)], axis=1)
-        eye = jnp.eye(bs, dtype=dtype)[None, None]
-        dinv = jax.lax.linalg.triangular_solve(
-            blocks.reshape(B * nb, bs, bs),
-            jnp.broadcast_to(eye, (B, nb, bs, bs)).reshape(B * nb, bs, bs),
-            left_side=True, lower=True).reshape(B, nb, bs, bs)
-        X = jnp.zeros_like(L)
-        for k in range(nb):
-            X = X.at[:, k * bs:(k + 1) * bs, k * bs:(k + 1) * bs].set(
-                dinv[:, k])
-        for i in range(1, nb):
-            r0 = i * bs
-            S = jnp.einsum("brj,bjc->brc", L[:, r0:r0 + bs, :r0],
-                           X[:, :r0, :r0], preferred_element_type=dtype)
-            X = X.at[:, r0:r0 + bs, :r0].set(-jnp.einsum(
-                "bri,bic->brc", dinv[:, i], S,
-                preferred_element_type=dtype))
-        return X
-
     def _lower_inv(self, L, cp, dtype):
         """Batched lower-triangular inverse for any panel width (L must
         carry unit diagonal on padded columns, i.e. include pad_eye)."""
         if cp <= self.UNROLL_CP:
             return self._unrolled_lower_inv(L)
-        if cp <= self.SOLVE_BLOCK:
-            B = L.shape[0]
-            eye = jnp.broadcast_to(jnp.eye(cp, dtype=dtype)[None],
-                                   (B, cp, cp))
-            return jax.lax.linalg.triangular_solve(
-                L, eye, left_side=True, lower=True)
-        return self._blocked_lower_inv(L, dtype)
+        B = L.shape[0]
+        eye = jnp.broadcast_to(jnp.eye(cp, dtype=dtype)[None], (B, cp, cp))
+        return jax.lax.linalg.triangular_solve(L, eye, left_side=True,
+                                               lower=True)
 
     def _factor_panels(self, diag_in, below_in, cp, dtype):
         """potrf + trsm on batched (B, cp, cp) diagonals with optional
-        (B, rp, cp) below panels; returns (L, x_or_None, Linv).
+        (B, rp, cp) below panels; returns (L, x_or_None, Linv). Tiny
+        widths use the unrolled form; every other width is one batched
+        cholesky (cuSOLVER on the GPU) — on an H100 that beat a 256-wide
+        blocked loop on the flat1000 / grid / flat_schur_full factors and
+        compiles in ~1 s instead of ~16 s at cp >= 2048 (see PERF.md).
 
         Linv (the explicit inverse of L) serves two roles: the below trsm
-        becomes a batched matmul (MXU-friendly), and the factor stores it
-        in the diag block's otherwise-unused strict upper triangle so the
-        solve needs ONE matmul per bucket instead of a triangular solve
-        (solve latency is per-op-overhead bound — measured)."""
+        becomes a batched matmul, and the factor stores it in the diag
+        block's otherwise-unused strict upper triangle so the solve needs
+        ONE matmul per bucket instead of a triangular solve."""
         if cp <= self.UNROLL_CP:
             L = self._unrolled_chol(diag_in)
-        elif cp <= self.BLOCK:
-            L = jax.lax.linalg.cholesky(diag_in, symmetrize_input=False)
         else:
-            L, below_in = self._blocked_factor(diag_in, below_in, dtype)
-            Linv = self._blocked_lower_inv(L, dtype)
-            return L, below_in, Linv
+            L = jax.lax.linalg.cholesky(diag_in, symmetrize_input=False)
         Linv = self._lower_inv(L, cp, dtype)
         x = None
         if below_in is not None:
@@ -1426,9 +1344,9 @@ class PlannedBackend:
         # fusion fence: without it XLA's fusion pass goes quadratic on
         # chained scatter->gather rounds whenever the root data vector is
         # a computed value (e.g. after the padding-mask multiply) instead
-        # of a parameter — measured 210 s -> 3.6 s compile on a 5k-lump
-        # Schur level, with no runtime change (nothing profitable fuses
-        # across a panel write -> next bucket's panel read anyway)
+        # of a parameter — compile of a 5k-lump Schur level drops from
+        # minutes to seconds, with no runtime change (nothing profitable
+        # fuses across a panel write -> next bucket's panel read anyway)
         ext = jax.lax.optimization_barrier(ext)
         panels = self._read_panels(ext, lb)
         pad_eye = self._pad_eye(lb.cols, lb.cp, ext.dtype)
@@ -1646,8 +1564,8 @@ class PlannedBackend:
         """Factor each bucket and IMMEDIATELY fold its update contribution
         into the compact accumulator (flat W in w-mode, U otherwise) so at
         most one bucket's solved below panels are live at a time — at BAL
-        scale a level's below tensors total ~20 GB TPU-tiled, more than
-        HBM, so they must not all coexist. Then subtract U into targets
+        scale a level's below tensors need not all coexist in device
+        memory. Then subtract U into targets
         via contiguous chain-run slices (see _build_dense_update)."""
         R = dense["R"]
         # margins let scanned slice reads use full-stride
@@ -1681,7 +1599,7 @@ class PlannedBackend:
                     "brk,bsk->brs", xo, xo,
                     preferred_element_type=ext.dtype).reshape(-1))
         if mode_w:
-            # U = W W^T as a single MXU GEMM
+            # U = W W^T as a single GEMM
             Wm = acc.reshape(R + 1, dense["Kp"])[:R]
             U_core = jnp.einsum("rk,sk->rs", Wm, Wm,
                                 preferred_element_type=ext.dtype,
@@ -1736,8 +1654,7 @@ class PlannedBackend:
                 rows_c = jnp.concatenate(
                     [rows_c,
                      jnp.full((padn, rows_c.shape[1]), R, jnp.int32)])
-            # 2-D scan operand: see _accum_sg_bucket (tiled minor-dim
-            # inflation of a materialized (B, rp, cp) tensor)
+            # 2-D scan operand: see _accum_sg_bucket
             rp_, cp_ = xb.shape[1], xb.shape[2]
             x2 = xb.reshape(xb.shape[0], rp_ * cp_)
             b0lo = aux[dense["gslots"][(bi, nb, subp)]]
@@ -1795,10 +1712,9 @@ class PlannedBackend:
                 x = jnp.concatenate(
                     [x, jnp.zeros((x.shape[0], rp3 - x.shape[1],
                                    x.shape[2]), x.dtype)], axis=1)
-            # keep the scan operand 2-D: a materialized (B, ns3p, s3, cp)
-            # tensor tiles its tiny minor dims up to (8, 128) — 30-60x
-            # inflation (3 GB per BAL sub-bucket); the 4-D view is taken
-            # per CHUNK inside the scan body instead
+            # keep the scan operand 2-D: the 4-D (B, ns3p, s3, cp) view
+            # is taken per CHUNK inside the scan body, so no layout pass
+            # ever materializes the whole tensor with tiny minor dims
             x2 = x.reshape(x.shape[0], rp3 * lb.cp)
             b0lo = aux[sgp["gslots"][(bi, nb, ssub)]]
 
@@ -1848,9 +1764,8 @@ class PlannedBackend:
     # splits across mesh devices; per level one all_gather shares the
     # factored panels (every device holds the full replicated data vector)
     # and, on dense levels, one psum reduces the compact update U. This
-    # has no reference counterpart (the reference is single-node): it is
-    # the TPU-native frontier — supernode-level model parallelism over
-    # ICI instead of NCCL-free single-GPU batching.
+    # has no reference counterpart (the reference is single-node):
+    # supernode-level model parallelism across the cards of one host.
     SHARD_MIN_B = 2  # buckets with B < n_shards*this run replicated
 
     def _register_factor_level_sharded(self, level, aux_np, N) -> int:
@@ -1986,9 +1901,8 @@ class PlannedBackend:
                 ci = jax.lax.broadcasted_iota(jnp.int32, (1, 1, lb.cp), 2)
                 if sharded[bi]:
                     Bs = lb.shard[0]
-                    rc = jax.lax.dynamic_slice(
-                        aux[lb.shard_rc], (idx * Bs, 0),
-                        (Bs, aux[lb.shard_rc].shape[1]))
+                    rc = jax.lax.dynamic_slice_in_dim(
+                        aux[lb.shard_rc], idx * Bs, Bs)
                     colb = base + (idx * Bs + jnp.arange(
                         Bs, dtype=jnp.int32)) * lb.cp
                     x = xs_local[bi]
@@ -2030,8 +1944,7 @@ class PlannedBackend:
                 itp = aux[dense["gslots_sh"][(bi, nb, subp)]]
                 ncp = itp.shape[0]
                 Is = ncp // N
-                my_items = jax.lax.dynamic_slice(
-                    itp, (idx * Is, 0), (Is, 2))
+                my_items = jax.lax.dynamic_slice_in_dim(itp, idx * Is, Is)
 
                 def chunk_step(U, b0lo, x=x, rows_c=rows_c, nb=nb,
                                subp=subp):
@@ -2104,8 +2017,8 @@ class PlannedBackend:
 
     def _tri(self, L, x, transpose):
         if L.shape[1] <= self.UNROLL_CP:
-            # tiny widths: closed-form inverse + batched matmul (XLA's
-            # batched triangular_solve is lane-waste-bound at n<=8)
+            # tiny widths: closed-form inverse + batched matmul (the
+            # tiny-panel route of _factor_panels)
             Linv = self._unrolled_lower_inv(L)
             eq = "bji,bjn->bin" if transpose else "bij,bjn->bin"
             return jnp.einsum(eq, Linv, x,
@@ -2142,8 +2055,7 @@ class PlannedBackend:
         cp = sb.cp
         # fusion fence on the RHS vector: same scatter->gather chain
         # compile blow-up as _factor_bucket (see comment there), on vv
-        # instead of ext — measured 214 s -> seconds on a 5k-lump Schur
-        # solve program
+        # instead of ext (a 5k-lump Schur solve program)
         vv = jax.lax.optimization_barrier(vv)
         panels = self._read_panels(ext, sb)
         if not use_inv:
@@ -2236,16 +2148,16 @@ class PlannedBackend:
 
     # -- scan-folded solve levels ---------------------------------------
     SCAN_WASTE = 8.0  # padded/actual volume cap when folding levels
-    SCAN_CP_MAX = 16  # row-granular gathers are ~7-9 ns/row for short
-    #                   slices but fall off a ~1.1 us/row DMA cliff above
-    #                   ~128 floats (measured); wide levels stay unrolled
-    #                   on contiguous panel reads instead
-    # measured v5e costs for the fold-vs-unroll decision (round 5): a
-    # grid100 solve was 91.8 ms scan-folded vs 7.2 ms unrolled — the
-    # scan pays Bp*(cpm+rpm) PADDED gather+scatter rows per step, while
-    # unrolled levels touch only actual rows (and contiguous buckets
-    # read panels as plain slices). Folding only wins on deep chains of
-    # small levels where per-bucket op overhead dominates padded rows.
+    SCAN_CP_MAX = 16  # row-granular gathers are modeled cheap only for
+    #                   short rows; wide levels stay unrolled on
+    #                   contiguous panel reads instead (carried over
+    #                   unmeasured on the current GPU target)
+    # modeled costs for the fold-vs-unroll decision (carried over
+    # unmeasured on the current GPU target): the scan pays Bp*(cpm+rpm)
+    # PADDED gather+scatter rows per step, while unrolled levels touch
+    # only actual rows (and contiguous buckets read panels as plain
+    # slices). Folding only wins on deep chains of small levels where
+    # per-bucket op overhead dominates padded rows.
     SOLVE_OP_US = 17e-6      # per sequential solve-op inside the program
     SOLVE_DIAG_OPS = 8.0     # XLA ops per unrolled bucket diag-solve
     SOLVE_SCAN_STEP_OPS = 12.0
@@ -2304,13 +2216,12 @@ class PlannedBackend:
     def _build_scan_group(self, levels):
         """Stack a run of consecutive solve levels into per-level index
         arrays of one common padded shape, so the run executes as ONE
-        lax.scan instead of ~8 XLA ops per level (solve latency is per-op
-        overhead bound — measured; a 13-level grid tree costs ~23 ms
-        unrolled, ~3 ms scanned). Panel rows are gathered row-granularly
-        (start = panel offset + r*storage stride), which lets lumps of
-        different storage widths share one tile: overread columns are
-        masked to zero, absent rows point at the zero margin past the
-        data. Requires the stored-inverse diag solve (_tri_stored)."""
+        lax.scan instead of ~8 XLA ops per level (solve latency is
+        modeled as per-op overhead bound). Panel rows are gathered
+        row-granularly (start = panel offset + r*storage stride), which
+        lets lumps of different storage widths share one tile: overread
+        columns are masked to zero, absent rows point at the zero margin
+        past the data. Requires the stored-inverse diag solve (_tri_stored)."""
         sk = self.plan.skel
         order = sk.order
         zoff = int(sk.data_size)
@@ -2383,7 +2294,7 @@ class PlannedBackend:
     def make_solve(self, start_lump: int, end_lump: int):
         """One jitted program for the whole solve. Three latency levers vs
         the per-level make_solve_l/make_solve_lt path (solve cost is
-        per-XLA-op overhead dominated — measured):
+        modeled as per-XLA-op overhead dominated):
           * L and Lt passes share one program (panel gathers CSE'd),
           * same-width buckets of a level fuse into one batched op,
           * levels whose factor took the dense W路W^T path push/pull their
@@ -2565,8 +2476,7 @@ class PlannedBackend:
                 (x, below), sc = _sg_pad(
                     sgp, bi, [x0, below0], sc, S)
                 b0lo = aux[islot]
-                # 2-D scan operands: see _accum_sg_bucket (tiled
-                # minor-dim inflation)
+                # 2-D scan operands: see _accum_sg_bucket
                 cpx, nrx = x.shape[1], x.shape[2]
                 rpb, cpb = below.shape[1], below.shape[2]
                 x2 = x.reshape(x.shape[0], cpx * nrx)
@@ -3096,11 +3006,9 @@ class PlannedBackend:
             for sb in buckets:
                 cp = sb.cp
                 # scheduling fence: ties each bucket's padded panel read
-                # (33x tiled expansion on small-block panels) to the
-                # PREVIOUS bucket's output update, so XLA cannot hoist
-                # every bucket's multi-GB read to the program start
-                # (measured: 10 coexisting reads = 19 GB HLO temp at BAL
-                # scale, over the 16 GB HBM)
+                # to the PREVIOUS bucket's output update, so XLA cannot
+                # hoist every bucket's multi-GB read to the program start
+                # (ten coexisting reads at BAL scale)
                 ext, oo = jax.lax.optimization_barrier((ext, oo))
                 panels = self._read_panels(ext, sb)
                 diag = panels[:, :cp]

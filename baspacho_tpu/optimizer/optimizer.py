@@ -334,10 +334,15 @@ class Optimizer:
     def _accumulate_family(self, hdata, grad, values_list, ff, pairs,
                            chunk_aux, dtype):
         """One family's (or one chunk's) grad/Hessian contributions.
-        Index tensors are built flat (B, ti*tj): on TPU a trailing
-        length-1 or tiny dim gets tiled to 128 lanes, which turns a
-        (B, 9, 9)-shaped index tensor into gigabytes at BA scale."""
+        Index tensors are built flat (B, ti*tj): a layout that pads a
+        trailing tiny dim would turn a (B, 9, 9)-shaped index tensor into
+        gigabytes at BA scale. Residuals and Jacobians are cast to the
+        assembly dtype first: constants may carry a wider dtype than the
+        variables, and a GEMM whose f64 operands feed an f32 result is
+        refused on the GPU."""
         cost, r, jacs = self._family_terms(values_list, ff, chunk_aux)
+        r = r.astype(dtype)
+        jacs = tuple(j.astype(dtype) for j in jacs)
         for k, vec_off in enumerate(chunk_aux["vec_off"]):
             if vec_off is None:
                 continue
@@ -528,7 +533,11 @@ class Optimizer:
             accepted = False
             new_cost = cost  # stays = cost if no trial step ever runs
             while lam <= settings.max_damping:
-                damped = hdata.at[damp_idx].mul(1.0 + lam)
+                # reference damping H_ii += lam * (1 + H_ii)
+                # (Optimizer.h addDamping): the additive term keeps
+                # variables that no factor observes (zero diagonal) PD
+                damped = hdata.at[damp_idx].mul(1.0 + lam).at[damp_idx].add(
+                    lam)
                 step = self._solve(damped, grad, settings)
                 new_values = self.apply_step(values, step)
                 new_cost = float(self.compute_cost(new_values))

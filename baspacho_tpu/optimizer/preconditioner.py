@@ -5,7 +5,7 @@ rebuilt batched: Jacobi gathers all span diagonal blocks of the corner
 into same-size batches and runs ONE batched Cholesky / triangular solve
 (the reference loops spans serially); Gauss-Seidel reuses the solver's
 pseudo-factor and partial solves; the lower-precision preconditioner runs
-the whole corner factorization in float32 (the TPU-native analog of the
+the whole corner factorization in float32 (the counterpart of the
 reference's double->float trick) with escalating damping until finite.
 
 All preconditioners follow the same protocol:

@@ -1,6 +1,6 @@
 """Block-level sparse structure (CSR/CSC of *blocks*, not scalars).
 
-TPU-native counterpart of the reference's SparseStructure
+Counterpart of the reference's SparseStructure
 (/root/reference/baspacho/baspacho/SparseStructure.{h,cpp}). All operations
 here are host-side symbolic analysis, run once per sparsity pattern; they
 are written with vectorized NumPy (counting sorts, bucketed pair

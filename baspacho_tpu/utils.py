@@ -117,12 +117,35 @@ class OpStat:
         )
 
 
+def enable_compile_cache() -> str:
+    """Turn on JAX's persistent compilation cache and return its directory.
+
+    `JAX_COMPILATION_CACHE_DIR`, when set, is used as it is and no other
+    path is set. Otherwise the cache lives at the fixed
+    `<checkout>/.jax_cache`, so that every run from one checkout finds
+    the programs of the runs before it."""
+    import os
+
+    import jax
+
+    path = os.environ.get("JAX_COMPILATION_CACHE_DIR") or os.path.join(
+        os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+        ".jax_cache")
+    jax.config.update("jax_compilation_cache_dir", path)
+    # cache every program: the planned backend's compiles are seconds to
+    # minutes each, and even small ones repeat across runs
+    jax.config.update("jax_persistent_cache_min_compile_time_secs", 0.0)
+    jax.config.update("jax_persistent_cache_min_entry_size_bytes", 0)
+    return path
+
+
 def with_matmul_precision(fn, precision: str = "highest"):
     """Wrap `fn` so it traces under jax.default_matmul_precision(...).
 
-    On TPU the default lets float32 dot operands round to bfloat16 on the
-    MXU; all library numeric ops trace at highest precision to honor the
-    reference's float accuracy contract (see Solver._get)."""
+    A float32 dot at default precision may run at reduced precision (TF32
+    on the GPU's tensor cores, ~10-bit mantissa); all library numeric ops
+    trace at highest precision to honor the reference's float accuracy
+    contract (see Solver._get)."""
     import functools
 
     import jax

@@ -66,3 +66,38 @@ def test_ba_pcg_path_converges():
         max_iters=15, use_pcg=True, precond=BlockJacobiPrecond,
         pcg_tol=1e-10, pcg_max_iters=80))
     assert stats["final_cost"] < 1e-8
+
+
+def test_ba_grad_hess_f32_has_no_mixed_dtype_dots():
+    """float32 variables with float64 constants (observations): every dot
+    of the Hessian assembly must take operands of its result dtype — the
+    GPU refuses a GEMM with f64 operands and an f32 result."""
+    import jax
+
+    from baspacho_tpu import BackendType
+
+    prob = make_random_bal(n_cams=4, n_pts=40, track_len=3, seed=2)
+    opt, _, _ = build_ba_optimizer(prob)
+    for fam in opt.families:
+        fam.values = fam.values.astype(jnp.float32)
+    opt.build_solver(OptimizerSettings(backend=BackendType.PLANNED))
+    values = [f.values for f in opt.families]
+    cost, grad, hdata = opt.compute_grad_hess(values)
+    assert grad.dtype == jnp.float32 and hdata.dtype == jnp.float32
+
+    jaxpr = jax.make_jaxpr(
+        lambda v: opt._grad_hess_impl(v, opt._gather_aux(), "float32"))(
+            values)
+
+    def dots(jx):
+        for eqn in jx.eqns:
+            if eqn.primitive.name == "dot_general":
+                yield eqn
+            for sub in jax.core.jaxprs_in_params(eqn.params):
+                yield from dots(sub)
+
+    found = list(dots(jaxpr.jaxpr))
+    assert found
+    for eqn in found:
+        out = eqn.outvars[0].aval.dtype
+        assert all(v.aval.dtype == out for v in eqn.invars), eqn

@@ -255,15 +255,15 @@ def test_regime_candidates_coarsen_and_stay_correct():
 
 def test_regime_candidates_apply_to_custom_model():
     """A user-provided computation model must take the SAME candidate
-    path as the default (round-3 verdict weak #5: the old coarsening
-    hack silently turned off for custom models)."""
-    from baspacho_tpu.computation_model import model_tpu_v5e_default
+    path as the default (a coarsening that silently turned off for
+    custom models would miss it)."""
+    from baspacho_tpu.computation_model import model_default
     gen = SparseMatGenerator.gen_flat(220, 0.1, seed=37)
     ss = gen.to_structure()
     psizes = np.full(220, 3)
     s_def = create_solver(Settings(backend=BackendType.PLANNED), psizes, ss)
     s_cus = create_solver(
         Settings(backend=BackendType.PLANNED,
-                 computation_model=model_tpu_v5e_default), psizes, ss)
+                 computation_model=model_default), psizes, ss)
     assert s_cus.skel.num_lumps == s_def.skel.num_lumps
     assert np.array_equal(s_cus.skel.lump_start, s_def.skel.lump_start)

@@ -89,33 +89,27 @@ def _sharded_case(gen, psize, elim=()):
 
 
 @pytest.mark.parametrize("case", ["flat_w", "schur_oh", "grid_pairs"])
-def test_single_factor_sharded_over_mesh(case):
+def test_single_factor_sharded_over_mesh(case, monkeypatch):
     """ONE factorization sharded across 8 devices (per-level panel work
     split, all_gather + psum coupling) must match the single-device
     factor to reduction-order tolerance. Covers all three level-update
-    mechanisms: scatter-built W, chunked one-hot, block pairs."""
+    mechanisms: scatter-built W, chunked one-hot, block pairs. The plan
+    is built at the first factor, so the forcing variables stay set
+    until the factors are done."""
     assert len(jax.devices()) >= 8
-    import os
     if case == "flat_w":
         solver, data = _sharded_case(
             SparseMatGenerator.gen_flat(150, 0.1, seed=4), np.full(150, 3))
     elif case == "schur_oh":
         gen = SparseMatGenerator.gen_flat(40, 0.1, seed=6)
         gen.add_schur_set(500, 0.03)
-        os.environ["BASPACHO_FORCE_DENSE_MODE"] = "oh"
-        try:
-            solver, data = _sharded_case(gen, np.full(540, 2),
-                                         elim=[0, 500])
-        finally:
-            os.environ.pop("BASPACHO_FORCE_DENSE_MODE", None)
+        monkeypatch.setenv("BASPACHO_FORCE_DENSE_MODE", "oh")
+        solver, data = _sharded_case(gen, np.full(540, 2), elim=[0, 500])
     else:  # grid: pairs-mode levels
-        os.environ["BASPACHO_FORCE_ASSEMBLY"] = "pairs"
-        try:
-            solver, data = _sharded_case(
-                SparseMatGenerator.gen_grid(10, 10, 0.3, seed=7),
-                np.full(100, 3))
-        finally:
-            os.environ.pop("BASPACHO_FORCE_ASSEMBLY", None)
+        monkeypatch.setenv("BASPACHO_FORCE_ASSEMBLY", "pairs")
+        solver, data = _sharded_case(
+            SparseMatGenerator.gen_grid(10, 10, 0.3, seed=7),
+            np.full(100, 3))
 
     mesh = Mesh(np.array(jax.devices()[:8]), axis_names=("shard",))
     f_sh = np.asarray(solver.factor_sharded(data, mesh))

@@ -205,8 +205,8 @@ def test_dense_sg_triangular_full_space():
 def test_dense_update_run_crossing_diag_below_boundary():
     """Regression: a dense-update row run whose below span is id-consecutive
     with the target's own spans must split at the diag/below storage
-    boundary (padded panels have a gap at panel_base + stride^2). Structure
-    from the round-1 advisor repro: span sizes [2,2,3,3], single-span
+    boundary (padded panels have a gap at panel_base + stride^2). Minimal
+    reproducing structure: span sizes [2,2,3,3], single-span
     lumps, lower-half columns {0:[0,2,3], 1:[1,2,3], 2:[2,3], 3:[3]} —
     target lump 2's run [2,3] crosses its own-span boundary."""
     from baspacho_tpu.block_matrix import CoalescedBlockMatrixSkel
@@ -324,12 +324,13 @@ def test_dense_outlier_routing():
 
 
 def test_panel_cap_splits_buckets(monkeypatch):
-    """Oversized shape groups split into capped sub-buckets (the BAL
-    527k-lump level-0 tensor would TPU-tile to 19.4 GB as ONE bucket —
-    over HBM); factor and solve must be bit-identical fallbacks of the
-    same math. A ~1 MB cap forces several contiguous sub-buckets on a
-    Schur problem while leaving planning economics realistic."""
-    monkeypatch.setenv("BASPACHO_PANEL_BYTES_CAP", str(1 << 20))
+    """Oversized shape groups split into capped sub-buckets (a memory
+    bound on each materialized panel tensor); factor and solve must be
+    exact fallbacks of the same math. A 16 KiB cap (dense float64 panel
+    bytes: a few dozen panels of this problem's level 0) forces several
+    contiguous sub-buckets on a Schur problem while leaving planning
+    economics realistic."""
+    monkeypatch.setenv("BASPACHO_PANEL_BYTES_CAP", str(16 << 10))
     solver, data = build(3, n=20, fill=0.15, schur=240,
                          elim_ranges=[0, 240], psize=(3, 4))
     sched = solver.backend._factor_schedule(0, solver.skel.num_lumps)
@@ -413,3 +414,108 @@ def test_planned_batched_sg_update_path(monkeypatch):
         dense = solver.skel.densify(datas[b], fill_upper_half=True)
         want = np.linalg.solve(dense, rhs[b])
         assert np.max(np.abs(xb[b] - want)) < 1e-7
+
+
+@pytest.mark.parametrize("cp", [4, 8, 9, 256, 257, 512, 1024])
+def test_factor_panels_widths_match_dense_oracle(cp):
+    """The panel potrf + below trsm + explicit inverse, at widths on both
+    sides of every former route threshold, against float64 numpy."""
+    import jax.numpy as jnp
+
+    from baspacho_tpu.ops.planned_backend import PlannedBackend
+
+    be = PlannedBackend.__new__(PlannedBackend)  # routes need no plan
+    rng = np.random.RandomState(cp)
+    B, rp = 2, 8
+    m = rng.rand(B, cp, cp) - 0.5
+    diag = m @ m.transpose(0, 2, 1) + cp * np.eye(cp)
+    below = rng.rand(B, rp, cp)
+    L, x, Linv = be._factor_panels(jnp.asarray(diag), jnp.asarray(below),
+                                   cp, jnp.float64)
+    L = np.tril(np.asarray(L))
+    Lw = np.linalg.cholesky(diag)
+    assert np.max(np.abs(L - Lw)) < 1e-9 * cp
+    x_want = np.linalg.solve(Lw, below.transpose(0, 2, 1)).transpose(0, 2, 1)
+    assert np.max(np.abs(np.asarray(x) - x_want)) < 1e-9 * cp
+    eye = np.broadcast_to(np.eye(cp), (B, cp, cp))
+    assert np.max(np.abs(np.tril(np.asarray(Linv)) @ Lw - eye)) < 1e-9 * cp
+
+
+@pytest.mark.parametrize("dtype,itemsize", [(np.float32, 4), (np.float64, 8)])
+def test_panel_bytes_dense(dtype, itemsize):
+    """A (cp+rp, cp) panel costs its dense bytes at the element size —
+    no padding of small minor dimensions."""
+    from baspacho_tpu.ops.planned_backend import PlannedBackend
+
+    assert PlannedBackend._panel_bytes(64, 4, dtype) == 68 * 4 * itemsize
+    assert PlannedBackend._panel_bytes(0, 512, dtype) == 512 * 512 * itemsize
+    # plans charge float64: one plan serves f32 and f64 data
+    assert PlannedBackend._panel_bytes(64, 4) == 68 * 4 * 8
+
+
+def test_fuse_same_cp_charges_max_rp(monkeypatch):
+    """Solve-side bucket fusion reads every member at the group's max rp:
+    each fused group's B * panel_bytes(max rp) must respect the cap, and
+    no member may be lost."""
+    from baspacho_tpu.ops.planned_backend import LumpBucket, PlannedBackend
+
+    solver, _ = build(3, n=20, fill=0.15, schur=240, elim_ranges=[0, 240],
+                      psize=(3, 4))
+    be = solver.backend
+    cp = 4
+
+    def bucket(B, rp):
+        lb = LumpBucket(rp=rp, cp=cp, off=np.arange(B, dtype=np.int32),
+                        rows=np.full(B, rp, np.int32),
+                        cols=np.full(B, cp, np.int32),
+                        vec_off=np.arange(B, dtype=np.int32),
+                        below_idx=np.zeros((B, max(rp, 1)), np.int32))
+        lb.members = np.arange(B)
+        return lb
+
+    # 10 panels at rp=8 (384 B each) then 2 at rp=24 (896 B each):
+    # per-member accounting would fuse them (3840 + 1792 = 5632 B under
+    # the cap), but the fused tensor is 12 panels at rp=24 = 10752 B
+    small, wide = bucket(10, 8), bucket(2, 24)
+    cap = 6000
+    monkeypatch.setenv("BASPACHO_PANEL_BYTES_CAP", str(cap))
+    fused = be._fuse_same_cp([small, wide])
+    assert sum(len(f.off) for f in fused) == 12
+    for f in fused:
+        assert len(f.off) * be._panel_bytes(f.rp, cp) <= cap
+    assert len(fused) == 2
+
+
+def test_factor_solve_bitwise_repeatable_on_cpu(monkeypatch):
+    """On the CPU the same data factors and solves to bitwise the same
+    result, including block-pair scatter-add assembly (the GPU may use
+    atomics there, so on the card only agreement within tolerance
+    holds — see tests/test_gpu_device.py)."""
+    monkeypatch.setenv("BASPACHO_FORCE_ASSEMBLY", "pairs")
+    gen = SparseMatGenerator.gen_grid(20, 20, 0.25, seed=37)
+    ss = gen.to_structure()
+    solver = create_solver(Settings(backend=BackendType.PLANNED),
+                           np.full(400, 3), ss)
+    sched = solver.backend._factor_schedule(0, solver.skel.num_lumps)
+    assert any(lev[1] for lev in sched), "pair assembly not hit"
+    data = random_spd_data(solver.data_size, solver.order, 3)
+    data = np.asarray(solver.skel.damp(data, 0.0, solver.order * 1.5))
+    f1, f2 = np.asarray(solver.factor(data)), np.asarray(solver.factor(data))
+    assert np.array_equal(f1, f2)
+    rhs = np.random.RandomState(1).rand(solver.order, 2)
+    assert np.array_equal(np.asarray(solver.solve(f1, rhs)),
+                          np.asarray(solver.solve(f1, rhs)))
+
+
+def test_empty_range_factor_and_solves_are_identity():
+    """factor_from / solve_*_from at the last span cover no lumps: they
+    return their input unchanged instead of building an empty bucket."""
+    solver, data = build(0)
+    n = solver.skel.num_spans
+    f = np.asarray(solver.factor(data))
+    np.testing.assert_array_equal(np.asarray(solver.factor_from(f, n)), f)
+    rhs = np.random.RandomState(2).rand(solver.order, 1)
+    np.testing.assert_array_equal(
+        np.asarray(solver.solve_l_from(f, n, rhs)), rhs)
+    np.testing.assert_array_equal(
+        np.asarray(solver.solve_lt_from(f, n, rhs)), rhs)

@@ -1,17 +1,18 @@
 #!/usr/bin/env python
 """Microbenchmarks of the assembly primitives on the ambient device.
 
-Measures, with amortized multi-dispatch timing (one readback per window):
+Measures, with amortized multi-dispatch timing (one block_until_ready per
+window):
   * exact-shape block scatter-add (the _apply_pairs element path) across
     (P, rs, cs) shapes — per-element cost vs block size,
   * masked/padded scatter-add (the catch-all path),
   * full-panel scatter .at[].set of (B, rp, cp) into a compact W matrix,
   * one-hot row-placement GEMM (the dense-update chunk step),
-  * plain large syrk (W @ W.T) for the MXU roofline,
+  * plain large syrk (W @ W.T) for the matmul roofline,
   * windowed dynamic-slice read-modify-write under lax.scan.
 
 These calibrate the dense-vs-pairs cost constants in planned_backend
-(ELEM_NS & co) — the decision that round 2 got wrong on flat1000.
+(ROW_NS & co), the dense-vs-pairs decision of each factor level.
 """
 import sys
 import os
@@ -30,23 +31,20 @@ def main():
     import jax
     import jax.numpy as jnp
 
-    log(f"devices: {jax.devices()}")
+    dev = jax.devices()[0]
+    log(f"devices: {len(jax.devices())} x {dev.platform} ({dev.device_kind})")
     rng = np.random.RandomState(0)
     N = 20_000_000
     base = jnp.asarray(rng.rand(N).astype(np.float32))
 
-    def readback(x):
-        float(np.asarray(jax.tree.leaves(x)[0]).ravel()[0])
-
     def timed(fn, *args, min_window=0.25, max_reps=600):
-        out = fn(*args)
-        readback(out)
+        out = jax.block_until_ready(fn(*args))
         n = 4
         while True:
             t0 = time.perf_counter()
             for _ in range(n):
                 out = fn(*args)
-            readback(out)
+            jax.block_until_ready(out)
             tot = time.perf_counter() - t0
             if tot >= min_window or n >= max_reps:
                 return tot / n

@@ -1,7 +1,7 @@
 #!/usr/bin/env python
-"""Fit a TPU ComputationModel from profiled factor timings.
+"""Fit a ComputationModel from profiled factor timings on the device.
 
-The TPU analog of the reference's bench -Z -> opt_comp_model auto-tuning
+The counterpart of the reference's bench -Z -> opt_comp_model auto-tuning
 loop (examples/OptimizeCompModel.cpp): run representative problems with
 per-op profiling, least-squares fit the polynomial op models, and print
 copy-pasteable Python constants for computation_model.py. The resulting
@@ -80,7 +80,7 @@ def main():
 
 def _emit(cm):
     print("# fitted ComputationModel (paste into computation_model.py):")
-    print("model_tpu_fitted = ComputationModel(")
+    print("model_fitted = ComputationModel(")
     print(f"    potrf_params={cm.potrf_params.tolist()},")
     print(f"    trsm_params={cm.trsm_params.tolist()},")
     print(f"    syge_params={cm.syge_params.tolist()},")
